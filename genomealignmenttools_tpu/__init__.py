@@ -1,6 +1,6 @@
-"""genomealignmenttools_tpu - a TPU-native genome-alignment chain/net engine.
+"""genomealignmenttools_tpu - a genome-alignment chain/net engine on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA + native C++ re-design of the capabilities of
 hillerlab/GenomeAlignmentTools (reference: /root/reference):
 
 - exact chain (re)scoring          (ref: src/scoreChain/scoreChain.c)
@@ -14,8 +14,8 @@ hillerlab/GenomeAlignmentTools (reference: /root/reference):
 Architecture (bottom-up):
   formats/   byte-exact host codecs (chain, net, 2bit, bed, axt, psl, matrices)
   device/    device data model (packed genomes, chain SoA, score LUTs)
-  ops/       JAX + Pallas kernels (block rescore, gap cost, local-score scan,
-             banded affine DP, seed finding)
+  ops/       JAX/XLA device paths + native host paths (block rescore, gap
+             cost, local-score scan, banded affine DP, seed finding)
   engines/   tool engines combining host logic with device kernels
   parallel/  jax.sharding mesh distribution of work units + deterministic merge
   cli/       drop-in command surface

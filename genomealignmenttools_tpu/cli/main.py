@@ -747,7 +747,7 @@ COMMANDS = {
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help", "help"):
-        print("gat - TPU-native GenomeAlignmentTools\ncommands: "
+        print("gat - GenomeAlignmentTools on JAX\ncommands: "
               + ", ".join(sorted(set(COMMANDS))), file=sys.stderr)
         return 0 if argv else 255
     cmd = argv[0]

@@ -1,4 +1,4 @@
-"""Genome sequences as code arrays (host numpy; mirrored to device HBM).
+"""Genome sequences as code arrays (host numpy; mirrored to device memory).
 
 Code mapping follows the 2bit packing (T=0 C=1 A=2 G=3, N=4).  Reverse
 complement in code space is `code ^ 2` for codes < 4 (T<->A, C<->G) and N

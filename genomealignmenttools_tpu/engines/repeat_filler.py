@@ -204,11 +204,9 @@ def _run_gap_jobs(jobs, t_genome, q_genome, aligner, scheme, gap_calc,
     The reference runs one lastz process per gap sequentially
     (RepeatFiller.py:540-560).  Here the banded-DP extension problems of
     MANY gaps are concatenated and run through ONE BandExtBatch.run per
-    chunk - on TPU that is one kernel dispatch for thousands of band
-    DPs, instead of a ~29 ms round trip per gap; on host it is the same
-    numpy loop either way (bit-identical results, the problems are
-    self-contained byte strings).  GAT_RF_BATCH=0 forces the sequential
-    per-gap path."""
+    chunk - one threaded native batch for thousands of band DPs
+    (bit-identical results, the problems are self-contained byte
+    strings).  GAT_RF_BATCH=0 forces the sequential per-gap path."""
     if os.environ.get("GAT_RF_BATCH", "1") == "0":
         for job in jobs:
             yield job, run_gap_job(job, t_genome, q_genome, aligner,

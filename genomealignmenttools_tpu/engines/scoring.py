@@ -15,7 +15,7 @@ which vectorizes on both host and device; see tests for equivalence with
 the direct loop.
 
 This module is the host (numpy) reference path; ops/rescore.py provides the
-batched JAX/Pallas device path that must agree bit-for-bit.
+batched JAX device and native host paths that must agree bit-for-bit.
 """
 
 from __future__ import annotations

@@ -7,8 +7,8 @@
 // persistent score columns swapped WITHOUT clearing so stale cells from
 // two columns earlier stay reachable exactly as in the reference.
 // Results (scores, tie decisions, traceback syms) are byte-identical to
-// the python oracle; tests/test_pallas_band.py fuzzes the three
-// implementations (numpy / this / pallas) against each other.
+// the python oracle; tests/test_band_ext_batch.py fuzzes the two
+// implementations (numpy / this) against each other.
 
 #include <algorithm>
 #include <atomic>

@@ -1,13 +1,13 @@
 // Aligned-pair packing for the dense rescore kernel.
 //
-// Chain blocks reference scattered (t, q) genome ranges; TPUs want dense
-// tiles.  This packs every chunk's t/q code bytes into fixed-width rows
+// Chain blocks reference scattered (t, q) genome ranges; the device pass
+// wants dense tiles.  This packs every chunk's t/q code bytes into fixed-width rows
 // (padding with code 4 = N, which scores 0 in every blastz scheme), so the
 // device kernel is pure elementwise arithmetic - no gathers anywhere.
 //
 // Replaces the per-base indexing of kent chainConnect.c chainScoreBlock's
 // inner loop (score += matrix[q[i]][t[i]]) with a one-time multithreaded
-// host restructure; scoring itself runs on the TPU.
+// host restructure; scoring itself runs on the device.
 
 #include <cstdint>
 #include <cstring>
@@ -55,7 +55,7 @@ void gat_pack_pairs(const uint8_t* t_codes, const uint8_t* q_codes,
 
 // Combined-code variant: one byte per aligned base, q*5+t in 0..24
 // (pad 24 = N/N, scoring 0).  Halves the host->device transfer relative
-// to separate t/q tiles - the dominant cost on narrow links.
+// to separate t/q tiles.
 void gat_pack_pairs_combined(const uint8_t* t_codes, const uint8_t* q_codes,
                              const int64_t* c_toff, const int64_t* c_qoff,
                              const int64_t* c_len, int64_t n_chunks,
@@ -90,8 +90,7 @@ void gat_pack_pairs_combined(const uint8_t* t_codes, const uint8_t* q_codes,
 // Score-byte tile packer: writes lut8[q*5 + t] (int8 substitution score
 // per aligned base) instead of the combined code.  Same pack cost as the
 // combined packer, but the device pass is then a PURE byte-sum - no
-// div/mod-5 decode, no packed-LUT shifts - which is ~3x faster on the
-// VPU (measured 4.3 ms -> 1.4 ms per 403 MB chunk-sum pass on v5e).
+// div/mod-5 decode, no packed-LUT shifts.
 // Only usable when every matrix entry fits int8 (all blastz schemes do);
 // callers fall back to combined-code tiles otherwise.  Pad bytes are 0
 // (= the N/N score in every scheme).
@@ -129,7 +128,7 @@ void gat_pack_pairs_scored(const uint8_t* t_codes, const uint8_t* q_codes,
 
 // 4-bit score-INDEX tile packer: most schemes have <= 16 distinct
 // substitution values, so each aligned base is a nibble indexing a
-// 16-entry value table decoded on device - HALF the HBM traffic of the
+// 16-entry value table decoded on device - HALF the device-memory traffic of the
 // int8 score-byte tiles on a purely memory-bound kernel.  Two bases per
 // byte (even base = low nibble); pad nibble 0 must decode to score 0
 // (callers put 0 first in the value table).  idx_lut is 25 uint8
@@ -176,8 +175,7 @@ void gat_pack_pairs_scored4(const uint8_t* t_codes, const uint8_t* q_codes,
 
 // Host scoring of combined tiles: per-row sum of lut25[c8] (the same
 // evaluation the device kernel performs), threaded.  Lets one-shot
-// workloads score at memory speed without touching the accelerator
-// (cold single passes are link-latency bound on narrow host<->TPU paths).
+// workloads score at memory speed without touching the device.
 void gat_chunk_scores_host(const uint8_t* c8, int64_t n_rows, int64_t chunk,
                            const int32_t* lut25, int16_t* out,
                            int n_threads) {

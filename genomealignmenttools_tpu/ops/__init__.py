@@ -1,1 +1,2 @@
-"""Device kernels: JAX/XLA ops + Pallas TPU kernels for the hot loops."""
+"""Hot loops: chain rescoring (JAX/XLA device paths, native host path),
+banded DP and the seed-extend gap aligner."""

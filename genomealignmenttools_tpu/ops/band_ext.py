@@ -20,6 +20,8 @@ Port notes:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 MP_MATCH, MP_UP, MP_LEFT, MP_MASK = 1, 2, 3, 3
@@ -240,3 +242,89 @@ def band_ext(global_mode: bool, char_matrix: np.ndarray, gap_open: int,
         out_a = out_a[::-1]
         out_b = out_b[::-1]
     return True, out_a, out_b, a_best, b_best
+
+
+class BandExtBatch:
+    """Batched band_ext: the threaded native batch (native/bandext.cpp),
+    or a band_ext loop when the native library is unavailable.
+
+    run(problems): problems = [(a_seq: bytes, b_seq: bytes, direction)].
+    Returns [(ok, sym_a, sym_b, a_best, b_best)] identical to band_ext per
+    problem.
+    """
+
+    def __init__(self, global_mode: bool, char_matrix: np.ndarray,
+                 gap_open: int, gap_extend: int, max_insert: int):
+        self.global_mode = global_mode
+        self.char_matrix = char_matrix
+        self.gap_open = gap_open
+        self.gap_extend = gap_extend
+        self.max_insert = max_insert
+
+    def run(self, problems):
+        if not problems:
+            return []
+        native = self._run_native(problems)
+        if native is not None:
+            return native
+        return [band_ext(self.global_mode, self.char_matrix,
+                         self.gap_open, self.gap_extend,
+                         self.max_insert, a, b, d)
+                for a, b, d in problems]
+
+    def _run_native(self, problems):
+        """Threaded C++ batch (native/bandext.cpp), bit-identical to the
+        numpy band_ext oracle; None when the native lib is unavailable or
+        GAT_BAND_NATIVE=0."""
+        if os.environ.get("GAT_BAND_NATIVE", "1") == "0":
+            return None
+        from ..native import get_lib
+        lib = get_lib()
+        if lib is None or not hasattr(lib, "gat_band_ext_batch"):
+            return None
+        import ctypes
+        n = len(problems)
+        a_off = np.zeros(n + 1, np.int64)
+        b_off = np.zeros(n + 1, np.int64)
+        dirs = np.zeros(n, np.int32)
+        for i, (a, b, d) in enumerate(problems):
+            a_off[i + 1] = a_off[i] + len(a)
+            b_off[i + 1] = b_off[i] + len(b)
+            dirs[i] = d
+        a_blob = np.frombuffer(b"".join(p[0] for p in problems)
+                               or b"\0", np.uint8)
+        b_blob = np.frombuffer(b"".join(p[1] for p in problems)
+                               or b"\0", np.uint8)
+        mat = np.ascontiguousarray(self.char_matrix, np.int32)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        res_p = lib.gat_band_ext_batch(
+            1 if self.global_mode else 0,
+            mat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            int(self.gap_open), int(self.gap_extend),
+            int(self.max_insert),
+            a_blob.ctypes.data_as(u8p), a_off.ctypes.data_as(i64p),
+            b_blob.ctypes.data_as(u8p), b_off.ctypes.data_as(i64p),
+            dirs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            n, 0)
+        try:
+            r = res_p.contents
+            ok = np.ctypeslib.as_array(r.ok, shape=(n,)).copy()
+            ab = np.ctypeslib.as_array(r.a_best, shape=(n,)).copy()
+            bb = np.ctypeslib.as_array(r.b_best, shape=(n,)).copy()
+            soff = np.ctypeslib.as_array(r.sym_off, shape=(n + 1,)).copy()
+            total = int(soff[-1])
+            sa = (np.ctypeslib.as_array(r.sym_a, shape=(total,)).tobytes()
+                  if total else b"")
+            sb = (np.ctypeslib.as_array(r.sym_b, shape=(total,)).tobytes()
+                  if total else b"")
+        finally:
+            lib.gat_band_ext_free(res_p)
+        out = []
+        for i in range(n):
+            if ok[i] == -2:
+                raise AssertionError("bandExt traceback out of band (local)")
+            out.append((bool(ok[i]),
+                        sa[soff[i]:soff[i + 1]], sb[soff[i]:soff[i + 1]],
+                        int(ab[i]), int(bb[i])))
+        return out

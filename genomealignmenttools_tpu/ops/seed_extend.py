@@ -202,11 +202,10 @@ class GapAligner:
     def _band_batch(self):
         cached = getattr(self, "_band_batch_obj", None)
         if cached is None:
-            from .pallas_band import BandExtBatch
+            from .band_ext import BandExtBatch
             cached = self._band_batch_obj = BandExtBatch(
                 False, self._dp_char_matrix(), self.gap_open,
-                self.gap_extend, self.max_insert,
-                a_max=max(256, -(-self.max_ext // 128) * 128))
+                self.gap_extend, self.max_insert)
         return cached
 
     def _gapped_probs(self, hsps: list, t_region: np.ndarray,
@@ -238,9 +237,9 @@ class GapAligner:
         """Extend HSPs across indels; keep alignments scoring >= L.
 
         All (left, right) extension problems are built up front and run
-        through the batched banded-DP kernel (ops/pallas_band: Pallas on
-        TPU, the numpy band_ext loop elsewhere - identical results), then
-        the best-first coverage replay uses the batch results."""
+        through one BandExtBatch (ops/band_ext: the threaded native batch,
+        or the numpy band_ext loop - identical results), then the
+        best-first coverage replay uses the batch results."""
         hsps, probs = self._gapped_probs(hsps, t_region, q_region, t_lo, q_lo)
         exts = self._band_batch().run(probs)
         return self._gapped_finish(hsps, exts, t_region, q_region,

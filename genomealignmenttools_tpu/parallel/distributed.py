@@ -1,7 +1,7 @@
 """Multi-host distribution (SURVEY §5.8 / §2.4).
 
 The reference's only cross-host mechanism is cluster-job fan-out over
-files (patchChain.perl:192-238).  The TPU-native replacement:
+files (patchChain.perl:192-238).  The replacement here:
 
 - `init_distributed()` - jax.distributed.initialize from the standard env
   (JAX_COORDINATOR_ADDRESS / num processes / process id), idempotent

@@ -3,7 +3,7 @@
 Work-unit sharding: per-base block scoring is embarrassingly parallel over
 blocks, so the block SoA is sharded along axis 0 of a 1-D ("data",) mesh;
 both genome code arrays and the score LUT are replicated (they are
-read-only and fit in HBM).  Per-shard results come back sharded and are
+read-only and fit in device memory).  Per-shard results come back sharded and are
 concatenated on host; chain order (and therefore every downstream byte) is
 independent of the shard count.
 """
@@ -130,7 +130,7 @@ class ShardedPairScorer:
     replication is needed at all - the pack stage resolved coordinates)."""
 
     def __init__(self, lut: np.ndarray, mesh: Mesh | None = None):
-        from ..ops.pallas_rescore import pack_lut
+        from ..ops.pair_rescore import pack_lut
         self.mesh = mesh if mesh is not None else make_mesh()
         self.packed_lut = jnp.asarray(pack_lut(np.asarray(lut)))
         self.n_dev = self.mesh.devices.size

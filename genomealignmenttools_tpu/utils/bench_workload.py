@@ -14,6 +14,14 @@ import numpy as np
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
+
+def bench_dir() -> str:
+    """Where benchmark workloads are built and cached: GAT_BENCH_DIR, or
+    .gat_bench inside the checkout."""
+    return os.environ.get("GAT_BENCH_DIR") or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))), ".gat_bench")
+
 _COMP_LUT = np.arange(256, dtype=np.uint8)
 for _a, _b in ((65, 84), (67, 71)):
     _COMP_LUT[_a], _COMP_LUT[_b] = _b, _a

@@ -2,7 +2,7 @@
 
 The reference has only coarse step timers and /proc/self/stat dumps
 (chainCleaner.c printMem:348-361, axtChain.c clock1000:281-287,
-verbose.c verboseTime:44-63).  The TPU-native replacements:
+verbose.c verboseTime:44-63).  The replacements here:
 
 - `phase(name)` - per-phase wall timers reported through the verbose
   subsystem at level 2 (matches verboseTime's "label: N millis" shape)

@@ -155,32 +155,6 @@ def test_hostnative_scorer_matches_golden(fixtures_dir, golden_dir, tmp_path):
     assert out.read_text() == golden
 
 
-def test_pallas_scorer_matches_host(fixtures_dir, monkeypatch):
-    """Pallas windowed kernel (interpret mode on CPU) is bit-identical to
-    the host reference across the fixed-shape streamed batches, on both
-    strands, including the multi-batch path (tiny WB forces several
-    dispatches per job) and the chunk_scores_multi native combine."""
-    from genomealignmenttools_tpu.ops import pallas_rescore
-
-    monkeypatch.setattr(pallas_rescore, "WB", 16)
-    scheme = score_scheme_default()
-    gcalc = gap_calc_default()
-    t_genome = Genome(os.path.join(fixtures_dir, "target.2bit"))
-    q_genome = Genome(os.path.join(fixtures_dir, "query.2bit"))
-    chains = read_chains(os.path.join(fixtures_dir, "synthetic.chain"))
-    host = ChainScorer(scheme, gcalc, t_genome, q_genome)
-    dev = DeviceChainScorer(scheme, gcalc, t_genome, q_genome, mode="pallas")
-    # per-chain path (block_scores)
-    for chain in chains[:10]:
-        bs_h, _ = host.score_arrays(chain)
-        bs_d, _ = dev.score_arrays(chain)
-        assert np.array_equal(bs_h, bs_d), f"chain {chain.id} differs"
-    # batched path (chunk_scores_multi + native combine)
-    got = dev.score_chains(chains)
-    want = [host.global_and_local(c) for c in chains]
-    assert got == want
-
-
 def test_score_tiles_vs_code_tiles_identical(fixtures_dir):
     """int8 score-byte tiles (the fast pack mode) must score bit-identically
     to combined-code tiles, through both the streamed-kernel and the
@@ -221,9 +195,9 @@ def test_score_tiles_vs_code_tiles_identical(fixtures_dir):
     pcs_p = PairChainScorer(plain, gcd)
     assert pcs_s.score(jobs, nblocks) == pcs_p.score(jobs, nblocks)
     assert pcs_4.score(jobs, nblocks) == pcs_p.score(jobs, nblocks)
-    out_4 = pcs_4.score_chained(jobs, nblocks, 3)
-    out_s = pcs_s.score_chained(jobs, nblocks, 3)
-    out_p = pcs_p.score_chained(jobs, nblocks, 3)
+    out_4 = pcs_4.score_async(jobs, nblocks)
+    out_s = pcs_s.score_async(jobs, nblocks)
+    out_p = pcs_p.score_async(jobs, nblocks)
     assert np.array_equal(np.asarray(out_s, np.int64),
                           np.asarray(out_p, np.int64))
     assert np.array_equal(np.asarray(out_4, np.int64),

@@ -58,7 +58,6 @@ score_chain_file(m["chain"], m["t2bit"], m["q2bit"],
 print("scoreChain under TSAN: done")
 # gap engines: threaded HSP window scan (hspscan.cpp) + threaded band
 # batch (bandext.cpp) through the full RepeatFiller path
-os.environ["GAT_BAND"] = "host"
 from genomealignmenttools_tpu.utils.bench_workload import (
     build_repeatfiller_workload)
 rf = build_repeatfiller_workload(
